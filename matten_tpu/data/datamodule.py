@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -51,7 +51,6 @@ class BatchLoader:
         num_edge_shards: int = 1,
         node_shard: bool = False,
         ring: bool = False,
-        node_chunk: Union[int, str, None] = "auto",
         num_buckets: int = 4,
         batch_by_size: bool = False,
         precompute_edge_vectors: bool = True,
@@ -98,7 +97,7 @@ class BatchLoader:
             # membership, identical every epoch. BatchNorm-based models then
             # memorize per-batch statistics: train loss keeps falling while
             # eval quality plateaus (measured on the n=100 elasticity set:
-            # stuck at 5.5 GPa vs 0.5 GPa with random batches — DEVNOTES r5).
+            # stuck at 5.5 GPa vs 0.5 GPa with random batches).
             logger.warning(
                 "batch_by_size with a dataset that fits one sort window "
                 "(%d graphs <= 4*batch_size=%d): batch membership becomes "
@@ -135,18 +134,6 @@ class BatchLoader:
         self._per_node_keys = frozenset(pk)
 
         per_shard = batch_size // num_shards
-        from matten_tpu.kernels.fused_conv import CHUNK_THRESHOLD_NODES, NODE_CHUNK
-
-        self._chunk_threshold = CHUNK_THRESHOLD_NODES
-        if node_chunk == "auto":
-            node_chunk = NODE_CHUNK
-        else:
-            # explicit chunk size: engage as soon as one chunk overflows
-            self._chunk_threshold = node_chunk or CHUNK_THRESHOLD_NODES
-        # graph-sharded layouts chunk-align each shard's edge slice after
-        # sharding (_align_shards); the ring layout has its own slot
-        # grouping and never chunks
-        self._node_chunk = None if ring else node_chunk
         # ring slot-capacity ladder: (padded edges, Sg) -> running max cap2
         self._ring_cap2 = {}
 
@@ -230,39 +217,11 @@ class BatchLoader:
 
     def _make_pad(self, n: int, e: int, per_shard: int) -> PadSpec:
         """Pad spec for raw totals (n nodes, e edges), honoring the rounding
-        multiples and the chunk-aligned edge capacity slack
-        (kernels/fused_conv.py node-chunked accumulator)."""
+        multiples; graph-sharded layouts split edges evenly over the shards."""
         n_pad = self._round(n + 1, self.node_multiple)
         e_pad = self._round(max(e, 1), self.edge_multiple)
-        node_chunk = self._node_chunk
-        sg = self.num_edge_shards
-        if node_chunk is not None and sg > 1:
-            # graph-sharded layouts: chunk alignment happens per shard after
-            # splitting (_align_shards); here only make the shapes
-            # shard/chunk-compatible when alignment will engage
-            e_pad = self._round(e_pad, sg)
-            if self.node_shard:
-                if self._round(n_pad, sg) // sg > self._chunk_threshold:
-                    n_pad = self._round(n_pad, sg * node_chunk)
-            elif n_pad > self._chunk_threshold:
-                n_pad = self._round(n_pad, node_chunk)
-            return PadSpec(n_pad, e_pad, per_shard)
-        if node_chunk is not None and n_pad > self._chunk_threshold:
-            from matten_tpu.kernels.fused_conv import EDGE_BLOCK
-
-            n_pad = self._round(n_pad, node_chunk)
-            # worst-case alignment slack: one partial block per node chunk
-            # (dst grouping) — the src-sorted view needs the same capacity
-            e_pad = self._round(
-                e_pad + (n_pad // node_chunk) * EDGE_BLOCK, self.edge_multiple
-            )
-            if e_pad % EDGE_BLOCK != 0:
-                raise ValueError(
-                    f"edge_multiple={self.edge_multiple} is incompatible with "
-                    f"the chunk-aligned layout: padded edge count {e_pad} must "
-                    f"be a multiple of EDGE_BLOCK={EDGE_BLOCK}"
-                )
-            return PadSpec(n_pad, e_pad, per_shard, node_chunk, EDGE_BLOCK)
+        if self.num_edge_shards > 1:
+            e_pad = self._round(e_pad, self.num_edge_shards)
         return PadSpec(n_pad, e_pad, per_shard)
 
     def _size_order(self, idx: np.ndarray, sizes: np.ndarray) -> np.ndarray:
@@ -291,11 +250,7 @@ class BatchLoader:
 
     def _pick_pad_ne(self, n: int, e: int) -> PadSpec:
         for p in self.pads:
-            cap = p.num_edges
-            if p.node_chunk is not None:
-                # chunk alignment can consume up to one edge block per chunk
-                cap -= (p.num_nodes // p.node_chunk) * p.edge_block
-            if p.num_nodes > n and cap >= e:
+            if p.num_nodes > n and p.num_edges >= e:
                 return p
         return self.pads[-1]
 
@@ -337,6 +292,27 @@ class BatchLoader:
             loads[b] += graphs[i].num_nodes
         return [g for b in bins for g in b]
 
+    def _ring_capacity(self, data: Dict) -> int:
+        """Ring slot capacity for a collated (sub-)batch: the worst
+        (dst_owner, src_owner) pair's actual occupancy (graphs are
+        node-contiguous so diagonal pairs are dense; the size-balanced graph
+        order from _ring_order keeps the max near E/Sg instead of the old
+        conservative 2E/Sg), quantized and tracked as a running max per
+        padded-edge bucket so shapes stabilize after the first epoch
+        (rank-max ladder semantics)."""
+        sg = self.num_edge_shards
+        c = data["pos"].shape[0] // sg
+        src, dst = data["edge_index"]
+        real = data["edge_mask"]
+        cnt = np.zeros((sg, sg), dtype=np.int64)
+        np.add.at(cnt, (dst[real] // c, src[real] // c), 1)
+        q = max(64, self.edge_multiple // sg)
+        need = int(np.ceil(max(int(cnt.max()), 1) / q)) * q
+        key = (data["edge_index"].shape[1], sg)
+        cap2 = max(need, self._ring_cap2.get(key, 0))
+        self._ring_cap2[key] = cap2
+        return cap2
+
     def _shard_nodes_and_edges(self, data: Dict, targets: Optional[Dict] = None):
         """Node-sharded layout: nodes in Sg contiguous chunks; each edge
         lives with the shard owning its destination (src ids stay global,
@@ -357,22 +333,9 @@ class BatchLoader:
         owner = dst // c
         if self.ring:
             src_owner = src // c
-            # slot capacity = the worst (dst_owner, src_owner) pair's actual
-            # occupancy (graphs are node-contiguous so diagonal pairs are
-            # dense; the size-balanced graph order from _ring_order keeps
-            # the max near E/Sg instead of the old conservative 2E/Sg),
-            # quantized and tracked per padded-edge bucket so shapes
-            # stabilize after the first epoch (rank-max ladder semantics)
-            e_pad = data["edge_index"].shape[1]
-            cnt = np.zeros((sg, sg), dtype=np.int64)
-            np.add.at(cnt, (owner[real], src_owner[real]), 1)
-            q = max(64, self.edge_multiple // sg)
-            need = int(np.ceil(max(int(cnt.max()), 1) / q)) * q
-            key = (e_pad, sg)
-            cap2 = max(need, self._ring_cap2.get(key, 0))
-            self._ring_cap2[key] = cap2
+            cap2 = self._ring_capacity(data)
             # diagnostic for padding_report: (pre-ring padded edges, cap2)
-            self._last_ring_stats = (e_pad, cap2)
+            self._last_ring_stats = (data["edge_index"].shape[1], cap2)
             cap = sg * cap2
         else:
             cap = 2 * (data["edge_index"].shape[1] // sg)
@@ -412,55 +375,6 @@ class BatchLoader:
             if v.shape[0] == n:  # per-node targets shard with their nodes
                 targets[key] = v.reshape((sg, c) + v.shape[1:])
         return data, targets
-
-    def _align_shards(self, data: Dict) -> Dict:
-        """Per-shard chunk alignment for graph-sharded layouts.
-
-        Each shard's dst-sorted (edge mode) or dst-local (node mode) edge
-        slice is re-grouped by destination node chunk so the fused kernel's
-        chunked accumulator stays active under graph parallelism (round-2
-        verdict weak #3: large sharded batches silently reverted to the XLA
-        tier). Node mode builds the src-sorted view over the GLOBAL
-        (halo-gathered) node space so the v1 chunked dx backward stays
-        available when the gathered input exceeds the VMEM-resident limit
-        (round-3 verdict weak #4)."""
-        ck = self._node_chunk
-        if ck is None or self.ring:
-            return data
-        from matten_tpu.kernels.fused_conv import EDGE_BLOCK
-
-        sg = self.num_edge_shards
-        if self.node_shard:
-            n_dst = data["pos"].shape[1]  # [Sg, c, 3] local chunk
-            n_src = sg * n_dst  # src ids index the halo-gathered array
-        else:
-            n_dst = data["pos"].shape[0]  # nodes replicated
-            n_src = n_dst
-        if n_dst <= self._chunk_threshold or n_dst % ck != 0:
-            return data
-        from matten_tpu.data.graph import chunk_align_edges
-
-        e_s = data["edge_index"].shape[-1]
-        # one alignment block per chunk of the larger view (dst and src
-        # views share the padded capacity)
-        cap = self._round(e_s, EDGE_BLOCK) + (max(n_dst, n_src) // ck) * EDGE_BLOCK
-        outs = [
-            chunk_align_edges(
-                data["edge_index"][s],
-                data["edge_cell_shift"][s],
-                data["edge_mask"][s],
-                n_dst,
-                ck,
-                EDGE_BLOCK,
-                cap,
-                num_src_nodes=n_src,
-            )
-            for s in range(sg)
-        ]
-        data = dict(data)
-        for k in outs[0]:
-            data[k] = np.stack([o[k] for o in outs])
-        return data
 
     def _shard_edges(self, data: Dict) -> Dict:
         """Split the dst-sorted edge arrays into contiguous chunks [Sg, ...]."""
@@ -510,22 +424,28 @@ class BatchLoader:
             if self.node_shard and self.ring:
                 shard_lists = [self._ring_order(gs) for gs in shard_lists]
             pad = self._pick_pad_multi(shard_lists)
-            shards = []
-            for s in range(self.num_shards):
-                d, t = collate_graphs(
-                    shard_lists[s],
+            collated = [
+                collate_graphs(
+                    gs,
                     pad,
                     species_map=self.species_map,
                     per_node_keys=self._per_node_keys,
                     precompute_edge_vectors=self.precompute_edge_vectors,
                 )
+                for gs in shard_lists
+            ]
+            if self.num_edge_shards > 1 and self.node_shard and self.ring:
+                # one slot capacity for all shards of the stacked batch:
+                # the running max over every shard, before any is laid out
+                for d, _ in collated:
+                    self._ring_capacity(d)
+            shards = []
+            for d, t in collated:
                 if self.num_edge_shards > 1:
                     if self.node_shard:
                         d, t = self._shard_nodes_and_edges(d, t)
                     else:
                         d = self._shard_edges(d)
-                    d = self._align_shards(d)
-                    d = dict(d)
                     if self.precompute_edge_vectors:
                         # re-derive edge vectors for the final edge layout
                         attach_edge_vectors(d, dst_local=self.node_shard)
@@ -713,12 +633,11 @@ class TensorDataModule:
         }
 
     # loader_kwargs keys forwarded verbatim to BatchLoader (the user surface
-    # for bucketing/chunking); sharding keys come from set_sharding()
+    # for bucketing); sharding keys come from set_sharding()
     _LOADER_PASSTHROUGH = (
         "node_multiple",
         "edge_multiple",
         "num_buckets",
-        "node_chunk",
         "drop_last",
         "batch_by_size",
         "precompute_edge_vectors",

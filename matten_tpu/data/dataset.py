@@ -2,20 +2,21 @@
 
 Input contract preserved from the reference (dataset/
 structure_scalar_tensor.py:19-375, notebooks/prepare_data.ipynb): a
-pandas-readable JSON with a `structure` column of pymatgen Structure dicts
-and target columns — a rank-k Cartesian tensor per crystal (e.g.
-`elastic_tensor_full`, 3x3x3x3) or per selected atom (e.g. `nmr_tensor`,
-[num_selected, 3, 3] + an `atom_selector` boolean column), plus optional
-scalar targets.
+pandas-style JSON table (read with the standard `json` module) with a
+`structure` column of pymatgen Structure dicts and target columns — a
+rank-k Cartesian tensor per crystal (e.g. `elastic_tensor_full`, 3x3x3x3)
+or per selected atom (e.g. `nmr_tensor`, [num_selected, 3, 3] + an
+`atom_selector` boolean column), plus optional scalar targets.
 
 Per-atom targets are scattered into dense per-node arrays at conversion
-time (the TPU-static analog of the reference's boolean-mask gather at loss
+time (the static-shape analog of the reference's boolean-mask gather at loss
 time, model/model.py:342-345). Failed rows are recorded and skipped
 (reference behavior, structure_scalar_tensor.py:357-374).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import warnings
 from dataclasses import dataclass, field
@@ -75,6 +76,22 @@ def _convert_target(cfg: TensorDatasetConfig, t: np.ndarray) -> np.ndarray:
     raise ValueError(cfg.tensor_target_format)
 
 
+def read_json_rows(filename) -> List[Dict[str, Any]]:
+    """Rows of a pandas-style JSON table, as `pandas.read_json` reads it:
+    the default `columns` orientation ({column: {row label: value}}) or the
+    `records` orientation ([{column: value}, ...])."""
+    with open(filename) as f:
+        raw = json.load(f)
+    if isinstance(raw, list) and all(isinstance(r, dict) for r in raw):
+        return [dict(r) for r in raw]
+    if isinstance(raw, dict) and all(isinstance(c, dict) for c in raw.values()):
+        labels = list(dict.fromkeys(k for col in raw.values() for k in col))
+        return [{c: col.get(label) for c, col in raw.items()} for label in labels]
+    raise ValueError(
+        f"`{filename}` is neither a columns- nor a records-oriented JSON table"
+    )
+
+
 def load_tensor_dataset(
     filename,
     cfg: TensorDatasetConfig,
@@ -85,17 +102,15 @@ def load_tensor_dataset(
 
     Returns (graphs, failed_row_indices).
     """
-    import pandas as pd
-
     if structures is not None:
         rows: List[Dict[str, Any]] = [{"structure": s} for s in structures]
     else:
-        df = pd.read_json(filename)
-        assert "structure" in df.columns, (
-            f"Unsupported input data from `{filename}`: needs a `structure` "
-            f"column of pymatgen Structure dicts"
-        )
-        rows = df.to_dict(orient="records")
+        rows = read_json_rows(filename)
+        if not rows or "structure" not in rows[0]:
+            raise ValueError(
+                f"Unsupported input data from `{filename}`: needs a `structure` "
+                f"column of pymatgen Structure dicts"
+            )
         for r in rows:
             r["structure"] = Structure.from_dict(r["structure"])
 

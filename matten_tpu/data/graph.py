@@ -8,7 +8,7 @@ itself; dummy nodes/graphs are excluded from statistics and losses via
 boolean masks (SURVEY.md §7 hard part 3).
 
 Edges are sorted by destination node after batching so segment reductions
-are segment-local (the layout the Pallas aggregation kernel assumes).
+are segment-local.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ __all__ = [
     "PadSpec",
     "collate_graphs",
     "pad_spec_for",
-    "chunk_align_edges",
 ]
 
 # x-dict keys that are always per-graph, never per-node (collation must not
@@ -86,148 +85,6 @@ class PadSpec:
     num_nodes: int
     num_edges: int
     num_graphs: int
-    # node-chunk / edge-block geometry for the chunk-aligned edge layout
-    # consumed by the node-chunked Pallas accumulator
-    # (kernels/fused_conv.py). None = plain dst-sorted layout.
-    node_chunk: Optional[int] = None
-    edge_block: int = 256
-
-
-def chunk_align_edges(
-    edge_index: np.ndarray,
-    edge_cell_shift: np.ndarray,
-    edge_mask: np.ndarray,
-    num_nodes: int,
-    node_chunk: int,
-    edge_block: int,
-    capacity: int,
-    src_view: bool = True,
-    num_src_nodes: Optional[int] = None,
-) -> Dict[str, np.ndarray]:
-    """Re-layout a dst-sorted edge list for the chunked fused kernel.
-
-    Groups edges by destination node-chunk and pads each group to a multiple
-    of `edge_block` with inert self-loop fill edges (mask False -> zero SH /
-    radial weights downstream), so every edge block deposits into exactly
-    one [D_out, node_chunk] accumulator block. Also builds the source-sorted
-    permutation view with the same per-chunk alignment (fill slots point at
-    a masked edge) for the dx backward kernel.
-
-    src_view=False skips the source-sorted view (emitted as inert
-    fill-only arrays) — only safe when every consumer stays on the v2
-    resident-node backward (n_src <= RESIDENT_NODES_MAX).
-
-    `num_src_nodes` (default `num_nodes`) sizes the node space the SOURCE
-    ids live in: under node-sharded graph parallelism src ids index the
-    halo-gathered GLOBAL array (num_src_nodes = shards x local nodes) while
-    dst ids are shard-local — the src-sorted view then groups by global
-    source chunk so the v1 dx backward can scatter into a chunked
-    [d1, num_src_nodes] output beyond the VMEM-resident limit.
-
-    Returns the replacement edge arrays + the kernel owner maps.
-    """
-    if num_src_nodes is None:
-        num_src_nodes = num_nodes
-    assert num_src_nodes % node_chunk == 0, (num_src_nodes, node_chunk)
-    assert num_nodes % node_chunk == 0, (num_nodes, node_chunk)
-    assert capacity % edge_block == 0, (capacity, edge_block)
-    nc = num_nodes // node_chunk
-    src, dst = np.asarray(edge_index)
-    real = np.asarray(edge_mask, dtype=bool)
-    n_real = int(real.sum())
-
-    ei = np.zeros((2, capacity), dtype=np.int32)
-    shift = np.zeros((capacity, 3), dtype=edge_cell_shift.dtype)
-    mask = np.zeros(capacity, dtype=bool)
-    nb = capacity // edge_block
-    dst_owner = np.full(nb, nc - 1, dtype=np.int32)
-
-    def _fill(a, b, node):
-        # inert self-loops at `node` (zero-length -> masked SH, zero radial)
-        ei[:, a:b] = node
-
-    off = 0
-    r_src = src[real]
-    r_dst = dst[real]
-    r_shift = edge_cell_shift[real]
-    owner_of = r_dst // node_chunk
-    for c in range(nc):
-        sel = owner_of == c
-        k = int(sel.sum())
-        end = off + k
-        if end > capacity:
-            raise ValueError(
-                f"chunk-aligned edge capacity {capacity} exceeded "
-                f"({n_real} real edges, {nc} chunks, block {edge_block})"
-            )
-        ei[0, off:end] = r_src[sel]
-        ei[1, off:end] = r_dst[sel]
-        shift[off:end] = r_shift[sel]
-        mask[off:end] = True
-        # every chunk owns >= 1 block, even with no incident real edges —
-        # otherwise the kernel's owner map never visits that chunk's output
-        # block and it stays uninitialized HBM (the _make_pad slack budgets
-        # exactly one extra block per chunk)
-        pad_end = off + max(1, int(np.ceil(k / edge_block))) * edge_block
-        if pad_end > capacity:
-            raise ValueError(
-                f"chunk-aligned edge capacity {capacity} exceeded by alignment"
-            )
-        _fill(end, pad_end, c * node_chunk)
-        dst_owner[off // edge_block : pad_end // edge_block] = c
-        off = pad_end
-    _fill(off, capacity, num_nodes - 1)  # trailing blocks -> last chunk
-
-    # source-sorted permutation view (for the dx scatter): same grouping by
-    # SOURCE chunk; fill slots point at any masked (inert) edge
-    dummies = np.flatnonzero(~mask)
-    assert dummies.size > 0, "chunk alignment requires >= 1 dummy edge slot"
-    fill_idx = int(dummies[0])
-    nc_src = num_src_nodes // node_chunk
-    src_perm = np.full(capacity, fill_idx, dtype=np.int32)
-    src_owner = np.full(nb, nc_src - 1, dtype=np.int32)
-    if not src_view:
-        return {
-            K.EDGE_INDEX: ei,
-            K.EDGE_CELL_SHIFT: shift,
-            K.EDGE_MASK: mask,
-            K.EDGE_DST_CHUNK: dst_owner,
-            K.EDGE_SRC_PERM: src_perm,
-            K.EDGE_SRC_CHUNK: src_owner,
-            K.EDGE_CHUNK_TAG: np.zeros(nc, dtype=np.int8),
-        }
-    real_idx = np.flatnonzero(mask)
-    s_owner = ei[0, real_idx] // node_chunk
-    order = np.argsort(s_owner, kind="stable")
-    real_sorted = real_idx[order]
-    s_owner = s_owner[order]
-    off = 0
-    for c in range(nc_src):
-        sel = s_owner == c
-        k = int(sel.sum())
-        end = off + k
-        if end > capacity:
-            raise ValueError("src-sorted chunk alignment capacity exceeded")
-        src_perm[off:end] = real_sorted[sel]
-        # same >=1-block guarantee as the dst view (dx gradients)
-        pad_end = off + max(1, int(np.ceil(k / edge_block))) * edge_block
-        if pad_end > capacity:
-            raise ValueError("src-sorted chunk alignment capacity exceeded")
-        src_owner[off // edge_block : pad_end // edge_block] = c
-        off = pad_end
-    # fill slots (already = fill_idx) scatter zero messages into the owner
-    # chunk's first node; trailing blocks keep owner nc-1
-
-    return {
-        K.EDGE_INDEX: ei,
-        K.EDGE_CELL_SHIFT: shift,
-        K.EDGE_MASK: mask,
-        K.EDGE_DST_CHUNK: dst_owner,
-        K.EDGE_SRC_PERM: src_perm,
-        K.EDGE_SRC_CHUNK: src_owner,
-        # static geometry rides in the shape (len == num node chunks)
-        K.EDGE_CHUNK_TAG: np.zeros(nc, dtype=np.int8),
-    }
 
 
 def _round_bucket(n: int, multiple: int) -> int:
@@ -322,21 +179,6 @@ def collate_graphs(
     edge_cell_shift = edge_cell_shift[order]
     edge_mask = edge_mask[order]
 
-    chunk_fields = {}
-    if pad.node_chunk is not None and pad.num_nodes > pad.node_chunk:
-        chunk_fields = chunk_align_edges(
-            edge_index,
-            edge_cell_shift,
-            edge_mask,
-            pad.num_nodes,
-            pad.node_chunk,
-            pad.edge_block,
-            pad.num_edges,
-        )
-        edge_index = chunk_fields.pop(K.EDGE_INDEX)
-        edge_cell_shift = chunk_fields.pop(K.EDGE_CELL_SHIFT)
-        edge_mask = chunk_fields.pop(K.EDGE_MASK)
-
     data = {
         K.POSITIONS: pos,
         K.ATOMIC_NUMBERS: atomic_numbers,
@@ -349,7 +191,6 @@ def collate_graphs(
         K.CELL: cell,
         K.GRAPH_MASK: graph_mask,
     }
-    data.update(chunk_fields)
     if species_map is not None:
         z = np.clip(atomic_numbers, 0, len(species_map) - 1)
         data[K.SPECIES_INDEX] = species_map[z].astype(np.int32)
@@ -429,7 +270,7 @@ def attach_edge_vectors(data: Dict[str, np.ndarray], dst_local: bool = False) ->
     where dst ids are shard-local and src ids index the concatenated
     [Sg*c] node space. Dummy edges get vec = 0 (the bessel window kills
     zero-length edges, and SH attrs are edge-masked), preserving the
-    padded-edge inertness contract (DEVNOTES).
+    padded-edge inertness contract (README, "Conventions").
     """
     ei = data[K.EDGE_INDEX]
     shift = np.asarray(data[K.EDGE_CELL_SHIFT], dtype=np.float64)

@@ -3,7 +3,7 @@
 The framework's universal data representation is a flat
 ``{field_name: jnp.ndarray}`` dict (a JAX pytree), mirroring the reference's
 DataKey registry (data/_key.py:14-49) with additional static-shape padding
-masks required on TPU.
+masks.
 """
 
 # --- geometry ---------------------------------------------------------------
@@ -30,22 +30,10 @@ GLOBAL_FEATS = "global_feats"  # [G, F] precomputed per-crystal features
 
 POS_FULL = "pos_full"  # [N_total, 3] halo-gathered positions (node-sharded mode)
 
-# --- padding masks (TPU static shapes; no reference counterpart) ------------
+# --- padding masks (static shapes; no reference counterpart) ----------------
 NODE_MASK = "node_mask"  # [N] bool, True = real node
 EDGE_MASK = "edge_mask"  # [E] bool, True = real edge
 GRAPH_MASK = "graph_mask"  # [G] bool, True = real graph
-
-# --- chunk-aligned edge layout (fused-kernel metadata; host-built) ----------
-# Present only when collation ran with chunk alignment (data/graph.py):
-# the dst-sorted edge list is grouped so every EDGE_BLOCK of edges targets
-# one NODE_CHUNK of nodes, enabling the node-chunked Pallas accumulator
-# (kernels/fused_conv.py) at any batch size.
-EDGE_DST_CHUNK = "edge_dst_chunk"  # [E/B] int32 block -> dst node-chunk owner
-EDGE_SRC_PERM = "edge_src_perm"  # [E] int32 src-sorted edge permutation
-EDGE_SRC_CHUNK = "edge_src_chunk"  # [E/B] int32 block -> src node-chunk owner
-# shape-encoded static geometry: length == number of node chunks, so the
-# kernel derives node_chunk = N // len(tag) and edge_block = E // len(owner)
-EDGE_CHUNK_TAG = "edge_chunk_tag"  # [num_chunks] int8 zeros
 
 # --- misc -------------------------------------------------------------------
 ATOM_SELECTOR = "atom_selector"  # [N] bool mask for per-atom targets

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from matten_tpu.data import keys as K
@@ -28,6 +27,7 @@ from matten_tpu.nn.common import freeze_irreps, normal_initializer
 from matten_tpu.nn.conv import PointConv, PointConvWithActivation
 from matten_tpu.nn.edge_geometry import SphericalHarmonicEdgeAttrs
 from matten_tpu.nn.embedding import EdgeLengthEmbedding, SpeciesEmbedding
+from matten_tpu.nn.module import Module
 from matten_tpu.nn.nodewise import NodewiseLinear, NodewiseReduce
 from matten_tpu.nn.sequential import Sequential, validate_chain
 from matten_tpu.ops.cartesian import cartesian_tensor_map
@@ -169,7 +169,7 @@ def _target_irreps(formula: str) -> Irreps:
     return cartesian_tensor_map(formula).irreps
 
 
-class ScalarTensorModel(nn.Module):
+class ScalarTensorModel(Module):
     """Graph-level scalar/tensor prediction (reference ScalarTensorModel,
     model_factory/tfn_scalar_tensor.py:32-100): backbone + equivariant
     Linear head into the target irreps, optional Cartesian readout.
@@ -187,7 +187,6 @@ class ScalarTensorModel(nn.Module):
     tensor_target_name: str = "elastic_tensor_full"
     scalar_target_names: Tuple[str, ...] = ()
 
-    @nn.compact
     def __call__(
         self, data: Dict[str, jnp.ndarray], use_running_average: bool = False
     ):
@@ -208,7 +207,7 @@ class ScalarTensorModel(nn.Module):
         return preds
 
 
-class AtomicTensorModel(nn.Module):
+class AtomicTensorModel(Module):
     """Per-node tensor prediction (reference AtomicTensorModel,
     model_factory/tfn_atomic_tensor.py:30-100): the backbone head maps
     directly into the target irreps; no pooling, no extra head."""
@@ -217,7 +216,6 @@ class AtomicTensorModel(nn.Module):
     output_formula: str = "ij=ji"
     output_format: str = "irreps"
 
-    @nn.compact
     def __call__(
         self, data: Dict[str, jnp.ndarray], use_running_average: bool = False
     ) -> jnp.ndarray:

@@ -1,4 +1,4 @@
-"""Equivariant neural-network modules (flax.linen) over the data-dict pytree."""
+"""Equivariant neural-network modules (nn.module) over the data-dict pytree."""
 
 from matten_tpu.nn.common import freeze_irreps, irreps_dict
 from matten_tpu.nn.embedding import SpeciesEmbedding, EdgeLengthEmbedding

@@ -3,10 +3,10 @@
 The reference attaches declared input/output irreps to every module and
 validates compatibility when stacking (ModuleIrreps, data/irreps.py:17-209;
 Sequential, nn/sequential.py:9). Here irreps metadata is *static module
-state* — flax.linen dataclass fields — threaded at model-construction time,
+state* — module dataclass fields — threaded at model-construction time,
 so every CG path table is known before tracing (SURVEY.md §3.4).
 
-Because linen module fields should be hashable, irreps dicts are stored as
+Because module fields should be hashable, irreps dicts are stored as
 tuples of (field, Irreps) pairs; `freeze_irreps`/`irreps_dict` convert.
 A value of None marks a non-irreps (invariant index/mask) field.
 """

@@ -5,9 +5,9 @@ Re-architecture of the reference's PointConv / PointConvWithActivation
 species-conditioned fully-connected tensor products; the per-edge message is
 a radial-MLP-weighted uvu CG tensor product of gathered source features with
 the edge spherical harmonics, segment-summed into destination nodes and
-normalized by sqrt(avg num neighbors). On TPU the gather -> TP -> scatter
-runs over statically padded, destination-sorted edge lists; dummy edges
-carry zero SH/radial attributes and deposit into masked nodes.
+normalized by sqrt(avg num neighbors). The gather -> TP -> scatter runs
+over statically padded, destination-sorted edge lists; dummy edges carry
+zero SH/radial attributes and deposit into masked nodes.
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ from __future__ import annotations
 import functools
 from typing import Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +28,7 @@ from matten_tpu.nn.common import (
     normal_initializer,
 )
 from matten_tpu.nn.gate import ActivationInfo
+from matten_tpu.nn.module import Module
 from matten_tpu.nn.norm import IrrepsBatchNorm, IrrepsInstanceNorm
 from matten_tpu.nn.radial import ScalarMLP
 from matten_tpu.ops.irreps import Irreps
@@ -52,13 +52,13 @@ def _conv_plans(
     return sc, lin1, uvu, lin2
 
 
-class PointConv(nn.Module):
+class PointConv(Module):
     """TFN point convolution.
 
     `graph_axis`: name of a shard_map mesh axis over which the *edge list*
     is partitioned (node arrays replicated). Each shard aggregates messages
     from its local edges; the per-node partial convolutions are combined by
-    a psum over ICI after the (linear) lin2 mixing — the edge-parallel
+    a psum after the (linear) lin2 mixing — the edge-parallel
     strategy SURVEY.md §7.6 calls for (no reference counterpart; the
     reference's only parallelism is Lightning DDP).
     """
@@ -71,7 +71,7 @@ class PointConv(nn.Module):
     graph_axis: Optional[str] = None
     # "edge": edges sharded, nodes replicated, partial convs psum'd.
     # "node": nodes AND edges sharded (edges live with their dst owner);
-    #         source features halo-gathered over ICI, aggregation local.
+    #         source features halo-gathered, aggregation local.
     graph_shard_mode: str = "edge"
 
     REQUIRED = (K.NODE_FEATURES, K.NODE_ATTRS, K.EDGE_ATTRS, K.EDGE_EMBEDDING)
@@ -92,7 +92,6 @@ class PointConv(nn.Module):
             self.irreps_in, {K.NODE_FEATURES: Irreps(self.conv_layer_irreps)}
         )
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         data = dict(data)
         sc_plan, lin1_plan, uvu_plan, lin2_plan = self._plans()
@@ -108,16 +107,13 @@ class PointConv(nn.Module):
         w_lin1 = self.param("w_lin1", normal_initializer(), (lin1_plan.weight_numel,))
         w_lin2 = self.param("w_lin2", normal_initializer(), (lin2_plan.weight_numel,))
 
-        # node_attrs is the species one-hot (SpeciesEmbedding). Path choice
-        # (r5, measured on v5e at the production S=73): the per-species
-        # weight-table GATHER (apply_onehot2) loses to the plain einsum
-        # contraction — its backward is an arbitrary-index scatter-add into
-        # the [u, S, w] tables plus per-step bf16 casts/layout copies of
-        # table-sized arrays (2.36M vs 3.17M edges/s full-step). The
-        # S-fold-FLOP einsum is noise on the MXU at these sizes. Gather
-        # stays available for species counts where S-fold FLOPs would
-        # actually bite (MATTEN_ONEHOT_GATHER_MIN_S, default effectively
-        # off); small S uses the MXU-shaped scalar matmul.
+        # node_attrs is the species one-hot (SpeciesEmbedding). Three
+        # formulations of the species-conditioned FCTPs, chosen by species
+        # count S; the S thresholds are unmeasured on the GPU. The
+        # per-species weight-table gather (apply_onehot2) is opt-in through
+        # MATTEN_ONEHOT_GATHER_MIN_S; S >= 16 contracts against the one-hot
+        # with the plain einsum (S-fold FLOPs); S < 16 runs one
+        # [B*d, u] @ [u, S*w] matmul per in1 entry (apply_scalar_matmul).
         import os
 
         gather_min_s = int(os.environ.get("MATTEN_ONEHOT_GATHER_MIN_S", "100000"))
@@ -145,22 +141,8 @@ class PointConv(nn.Module):
                     res = res * mask[:, None].astype(res.dtype)
                 return res
 
-        elif (
-            attrs.shape[-1] < 16
-            and compat
-        ):
-            # small species count: one plain [B*d, u] @ [u, S*w] matmul per
-            # in1 entry beats `apply`'s B-batched tiny-M matmuls on the MXU
-            from matten_tpu.kernels.fused_tp import get_agg_matmul_dtype
-
-            od = (
-                jnp.bfloat16
-                if get_agg_matmul_dtype() == "bfloat16"
-                else None
-            )
-            apply_sc = lambda x, w, p: p.apply_scalar_matmul(
-                x, attrs, w, operand_dtype=od
-            )
+        elif compat:
+            apply_sc = lambda x, w, p: p.apply_scalar_matmul(x, attrs, w)
         else:
             apply_sc = lambda x, w, p: p.apply(x, attrs, w)
 
@@ -175,21 +157,9 @@ class PointConv(nn.Module):
             + [uvu_plan.weight_numel]
         )
         radial_mlp = ScalarMLP(hs=tuple(hs), act="silu", name="radial_mlp")
+        edge_weights = radial_mlp(edge_emb)
 
         initializing = self.is_initializing()
-        from matten_tpu.kernels.fused_tp import get_tp_impl
-
-        # the fused kernels consume feature-major ([dw, E]) radial weights;
-        # producing them natively (transposed MLP, identical parameters)
-        # avoids transposing the widest per-edge array in HBM twice per
-        # layer (fwd + the dw cotangent)
-        transposed_w = get_tp_impl() == "pallas"
-        if transposed_w:
-            edge_weights_t = radial_mlp(edge_emb.T, transposed=True)
-            edge_weights = None
-        else:
-            edge_weights = radial_mlp(edge_emb)
-
         if (
             self.graph_axis is not None
             and self.graph_shard_mode == "node_ring"
@@ -199,8 +169,8 @@ class PointConv(nn.Module):
             # around the graph axis with ppermute while each shard
             # aggregates the edge group whose sources are in the chunk it
             # currently holds — the exchange of chunk k+1 overlaps the
-            # aggregation of chunk k (async collectives), so ICI time hides
-            # behind on-chip compute (the SURVEY §7.6 north-star pattern).
+            # aggregation of chunk k (async collectives), so the transfer
+            # hides behind compute (the SURVEY §7.6 north-star pattern).
             sg = jax.lax.axis_size(self.graph_axis)
             me = jax.lax.axis_index(self.graph_axis)
             e_loc = src.shape[0]
@@ -209,12 +179,7 @@ class PointConv(nn.Module):
             src_g = src.reshape(sg, cap2)
             dst_g = dst.reshape(sg, cap2)
             sh_g = edge_attrs.reshape(sg, cap2, -1)
-            if transposed_w:
-                # [dw, E_loc] -> [dw, sg, cap2]: edges are slot-major, so
-                # the ring-step grouping rides on the trailing axis
-                wt_g = edge_weights_t.reshape(edge_weights_t.shape[0], sg, cap2)
-            else:
-                w_g = edge_weights.reshape(sg, cap2, -1)
+            w_g = edge_weights.reshape(sg, cap2, -1)
             perm = [(i, (i + 1) % sg) for i in range(sg)]
             chunk = feats
             agg = None
@@ -229,24 +194,8 @@ class PointConv(nn.Module):
                     else None
                 )
                 src_local = take(src_g) - g * c
-                if get_tp_impl() == "pallas":
-                    from matten_tpu.kernels.fused_conv import fused_uvu_conv_t
-
-                    part = fused_uvu_conv_t(
-                        uvu_plan,
-                        chunk,
-                        take(sh_g),
-                        jax.lax.dynamic_index_in_dim(
-                            wt_g, g, axis=1, keepdims=False
-                        ),
-                        src_local,
-                        take(dst_g),
-                        num_nodes_out=num_nodes,
-                    )
-                else:
-                    msg = uvu_plan.apply(chunk[src_local], take(sh_g), take(w_g))
-                    part = scatter_sum(msg, take(dst_g), num_nodes)
-                part = part.astype(chunk.dtype)
+                msg = uvu_plan.apply(chunk[src_local], take(sh_g), take(w_g))
+                part = scatter_sum(msg, take(dst_g), num_nodes).astype(chunk.dtype)
                 agg = part if agg is None else agg + part
                 if nxt is not None:
                     chunk = nxt
@@ -257,50 +206,13 @@ class PointConv(nn.Module):
                 and not initializing
             )
             if node_shard:
-                # simple halo: gather every shard's (post-lin1) features
-                # over ICI; src ids are global, aggregation is dst-local
+                # simple halo: gather every shard's (post-lin1) features;
+                # src ids are global, aggregation is dst-local
                 feats_src = jax.lax.all_gather(feats, self.graph_axis, tiled=True)
             else:
                 feats_src = feats
-
-            if get_tp_impl() == "pallas":
-                # fused Pallas path: per-edge TP + aggregation without
-                # materializing messages in HBM (kernels/fused_conv.py).
-                # Active in every layout: single-device (optionally with the
-                # chunk-aligned collation for large batches), edge-sharded
-                # (nodes replicated, dst global, partials psum'd after lin2)
-                # and node-sharded (src indexes the halo-gathered features,
-                # dst and the output are shard-local).
-                from matten_tpu.kernels.fused_conv import (
-                    EdgeChunks,
-                    fused_uvu_conv_t,
-                )
-
-                chunks = None
-                kw = {}
-                if K.EDGE_DST_CHUNK in data:
-                    chunks = EdgeChunks(
-                        data[K.EDGE_DST_CHUNK],
-                        data[K.EDGE_SRC_PERM],
-                        data[K.EDGE_SRC_CHUNK],
-                    )
-                    # collation's chunk geometry is shape-encoded
-                    kw["node_chunk"] = num_nodes // data[K.EDGE_CHUNK_TAG].shape[0]
-                    kw["block"] = src.shape[0] // chunks.dst_owner.shape[0]
-                agg = fused_uvu_conv_t(
-                    uvu_plan,
-                    feats_src,
-                    edge_attrs,
-                    edge_weights_t,
-                    src,
-                    dst,
-                    chunks=chunks,
-                    num_nodes_out=num_nodes,
-                    **kw,
-                )
-            else:
-                msg = uvu_plan.apply(feats_src[src], edge_attrs, edge_weights)
-                agg = scatter_sum(msg, dst, num_nodes)
+            msg = uvu_plan.apply(feats_src[src], edge_attrs, edge_weights)
+            agg = scatter_sum(msg, dst, num_nodes)
 
         if self.avg_num_neighbors is not None:
             agg = agg / np.sqrt(self.avg_num_neighbors)
@@ -325,7 +237,7 @@ class PointConv(nn.Module):
         return data
 
 
-class PointConvWithActivation(nn.Module):
+class PointConvWithActivation(Module):
     """conv -> gate activation -> (batch|instance|none) normalization."""
 
     irreps_in: IrrepsDictT
@@ -361,7 +273,6 @@ class PointConvWithActivation(nn.Module):
             self.irreps_in, {K.NODE_FEATURES: self._act_info().irreps_out}
         )
 
-    @nn.compact
     def __call__(
         self, data: Dict[str, jnp.ndarray], use_running_average: bool = False
     ) -> Dict[str, jnp.ndarray]:

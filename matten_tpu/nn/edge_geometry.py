@@ -1,6 +1,6 @@
 """Edge displacement vectors and spherical-harmonic edge attributes.
 
-TPU port of the reference's lazy edge-geometry computation
+Port of the reference's lazy edge-geometry computation
 (with_edge_vectors, nn/_nequip.py:214-268) and SphericalHarmonicEdgeAttrs
 (nn/_nequip.py:131-176). Padded (masked-out) edges produce zero vectors and
 zero SH attributes of degree > 0 (the l=0 component is masked explicitly so
@@ -11,11 +11,11 @@ from __future__ import annotations
 
 from typing import Dict
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from matten_tpu.data import keys as K
 from matten_tpu.nn.common import IrrepsDictT, freeze_irreps, irreps_dict, merge_irreps
+from matten_tpu.nn.module import Module
 from matten_tpu.ops.irreps import Irreps
 from matten_tpu.ops.spherical_harmonics import spherical_harmonics
 
@@ -93,7 +93,7 @@ def _maybe_gather_positions(data, axis, initializing: bool):
     return data
 
 
-class SphericalHarmonicEdgeAttrs(nn.Module):
+class SphericalHarmonicEdgeAttrs(Module):
     """edge_attrs = Y_l(r_hat) for l in `irreps_edge_sh` (component norm).
 
     Reference: SphericalHarmonicEdgeAttrs (nn/_nequip.py:131-176) with
@@ -113,7 +113,6 @@ class SphericalHarmonicEdgeAttrs(nn.Module):
     def irreps_out(self) -> IrrepsDictT:
         return merge_irreps(self.irreps_in, {self.out_field: Irreps(self.irreps_edge_sh)})
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         data = _maybe_gather_positions(data, self.gather_axis, self.is_initializing())
         data = with_edge_vectors(

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +14,7 @@ import numpy as np
 from matten_tpu.data import keys as K
 from matten_tpu.nn.common import IrrepsDictT, merge_irreps
 from matten_tpu.nn.edge_geometry import with_edge_vectors
+from matten_tpu.nn.module import Dense, Module
 from matten_tpu.nn.radial import soft_one_hot_linspace
 from matten_tpu.ops.irreps import Irreps
 
@@ -32,11 +32,11 @@ def atomic_number_map(allowed_species: Tuple[int, ...]) -> np.ndarray:
     return table
 
 
-class SpeciesEmbedding(nn.Module):
+class SpeciesEmbedding(Module):
     """Atomic number -> one-hot node_attrs [N, S] and node_features [N, D].
 
     node_attrs = one_hot(species_index); node_features = Dense(node_attrs)
-    (torch.nn.Linear in the reference, nn/embedding.py:85-110; here a flax
+    (torch.nn.Linear in the reference, nn/embedding.py:85-110; here a
     Dense with bias). Padded nodes get species 0 but are masked downstream.
     """
 
@@ -70,7 +70,6 @@ class SpeciesEmbedding(nn.Module):
             },
         )
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         data = dict(data)
         if K.SPECIES_INDEX in data:
@@ -84,7 +83,7 @@ class SpeciesEmbedding(nn.Module):
         attrs = jax.nn.one_hot(idx, self.num_species, dtype=data[K.POSITIONS].dtype)
         if K.NODE_MASK in data:
             attrs = attrs * data[K.NODE_MASK][:, None].astype(attrs.dtype)
-        embed = nn.Dense(self.embedding_dim, name="linear")(attrs)
+        embed = Dense(self.embedding_dim, name="linear")(attrs)
         if self.use_atom_feats:
             embed = jnp.concatenate([embed, data[K.ATOM_FEATS]], axis=-1)
         if self.use_global_feats:
@@ -97,7 +96,7 @@ class SpeciesEmbedding(nn.Module):
         return data
 
 
-class NodeAttrsFromEdgeAttrs(nn.Module):
+class NodeAttrsFromEdgeAttrs(Module):
     """Node attributes as a segment reduction of edge attributes.
 
     Reference: NodeAttrsFromEdgeAttrs (nn/embedding.py:114-160).
@@ -133,7 +132,7 @@ class NodeAttrsFromEdgeAttrs(nn.Module):
         return data
 
 
-class EdgeLengthEmbedding(nn.Module):
+class EdgeLengthEmbedding(Module):
     """Edge length -> radial basis embedding [E, num_basis].
 
     bessel basis with hard (0, end) window, scaled by sqrt(num_basis) for
@@ -154,7 +153,6 @@ class EdgeLengthEmbedding(nn.Module):
     def irreps_out(self) -> IrrepsDictT:
         return merge_irreps(self.irreps_in, {self.out_field: Irreps(f"{self.num_basis}x0e")})
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         from matten_tpu.nn.edge_geometry import _maybe_gather_positions
 

@@ -13,10 +13,10 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
+from matten_tpu.nn.module import Module
 from matten_tpu.nn.radial import normalize2mom
 from matten_tpu.ops.irreps import Irrep, Irreps, tp_path_exists
 
@@ -97,13 +97,13 @@ class ActivationInfo:
         )
         self.act_scalar_even = _act_name(activation_scalars, 1)
 
-    def make(self) -> nn.Module:
+    def make(self) -> Module:
         if self.activation_type == "gate":
             return Gate(info=self)
         return NormActivation(irreps=self.irreps_in, act=self.act_scalar_even)
 
 
-class Gate(nn.Module):
+class Gate(Module):
     """[scalars | gates | gated] -> [act(scalars) | act(gates) * gated]."""
 
     info: ActivationInfo
@@ -130,7 +130,7 @@ class Gate(nn.Module):
             g = jnp.concatenate(acted_gates, axis=-1)  # [..., total_gated_mul]
             # one static-index expansion [gate channel -> component] and a
             # single elementwise multiply instead of a per-entry
-            # slice/reshape loop (small-op-count tail on TPU)
+            # slice/reshape loop (fewer small ops)
             idx, base = [], 0
             for mul, ir in info.irreps_gated:
                 idx.append(np.repeat(base + np.arange(mul), ir.dim))
@@ -142,7 +142,7 @@ class Gate(nn.Module):
         return jnp.concatenate(out_scalars + out_gated, axis=-1)
 
 
-class NormActivation(nn.Module):
+class NormActivation(Module):
     """x_ch -> x_ch * act(||x_ch||) / ||x_ch|| per irrep channel.
 
     Reference: e3nn NormActivation via ActivationLayer(activation_type=

@@ -8,17 +8,17 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from matten_tpu.data import keys as K
 from matten_tpu.nn.common import IrrepsDictT, irreps_dict, merge_irreps, normal_initializer
+from matten_tpu.nn.module import Module
 from matten_tpu.ops.irreps import Irreps
 from matten_tpu.ops.scatter import scatter_max, scatter_min, scatter_sum
 from matten_tpu.ops.tensor_product import LinearPlan
 
 
-class NodewiseLinear(nn.Module):
+class NodewiseLinear(Module):
     """Equivariant linear map on a node field (e3nn o3.Linear, no bias)."""
 
     irreps_in: IrrepsDictT
@@ -36,7 +36,6 @@ class NodewiseLinear(nn.Module):
             self.irreps_in, {self._out_field: Irreps(self.irreps_out_field)}
         )
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         data = dict(data)
         plan = LinearPlan(
@@ -48,7 +47,7 @@ class NodewiseLinear(nn.Module):
         return data
 
 
-class NodewiseReduce(nn.Module):
+class NodewiseReduce(Module):
     """Masked scatter-reduce of a node field into per-graph features.
 
     Supports sum/mean/min/max like the reference (nn/nodewise.py:120-148,
@@ -78,7 +77,6 @@ class NodewiseReduce(nn.Module):
             {self._out_field: irreps_dict(self.irreps_in)[self.field]},
         )
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         import jax
 
@@ -118,10 +116,10 @@ class NodewiseReduce(nn.Module):
         return data
 
 
-class NodewiseSelect(nn.Module):
+class NodewiseSelect(Module):
     """Mask a node field by a boolean per-node selector (e.g. atom_selector).
 
-    TPU note: instead of gathering a dynamic-size subset (reference
+    Static shapes: instead of gathering a dynamic-size subset (reference
     nn/nodewise.py:18-86), the field is zero-masked at static shape; loss /
     metric reductions use the same mask.
     """

@@ -5,8 +5,8 @@ nn/utils.py:397-446) with e3nn semantics: per-irrep-entry statistics,
 scalars get mean subtraction, all entries get second-moment ("component")
 normalization, running statistics with momentum, affine weight (+ bias for
 scalars). Statistics exclude padded nodes via the node mask — the reference
-has no padding so this is the TPU-correctness addition SURVEY.md §7 calls
-out (hard part 3).
+has no padding so this is the static-shape correctness addition SURVEY.md §7
+calls out (hard part 3).
 
 The reference's custom InstanceNorm has a known train/eval bug
 (nn/utils.py:440-441); the instance norm here is implemented cleanly
@@ -18,10 +18,11 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 
+from matten_tpu.nn.module import Module
 from matten_tpu.ops.irreps import Irreps
 from matten_tpu.ops.scatter import scatter_mean
 
@@ -63,7 +64,7 @@ def _bn_meta(irreps: Irreps):
     return comp2feat, msq_mat, scal_comp
 
 
-class IrrepsBatchNorm(nn.Module):
+class IrrepsBatchNorm(Module):
     irreps: Irreps
     eps: float = 1e-5
     momentum: float = 0.1
@@ -75,13 +76,10 @@ class IrrepsBatchNorm(nn.Module):
 
     def _reduce(self, num, den):
         if self.axis is not None and not self.is_initializing():
-            import jax
-
             num = jax.lax.psum(num, self.axis)
             den = jax.lax.psum(den, self.axis)
         return num / jnp.maximum(den, 1.0)
 
-    @nn.compact
     def __call__(
         self,
         x: jnp.ndarray,
@@ -99,8 +97,8 @@ class IrrepsBatchNorm(nn.Module):
             "batch_stats", "running_var", lambda: jnp.ones(num_features)
         )
         if self.affine:
-            weight = self.param("weight", nn.initializers.ones, (num_features,))
-            bias = self.param("bias", nn.initializers.zeros, (num_scalars,))
+            weight = self.param("weight", jax.nn.initializers.ones, (num_features,))
+            bias = self.param("bias", jax.nn.initializers.zeros, (num_scalars,))
 
         if mask is not None:
             m = mask.astype(x.dtype)
@@ -154,7 +152,7 @@ class IrrepsBatchNorm(nn.Module):
         return out
 
 
-class IrrepsInstanceNorm(nn.Module):
+class IrrepsInstanceNorm(Module):
     """Per-graph irreps norm: statistics over each graph's (real) nodes."""
 
     irreps: Irreps
@@ -162,7 +160,6 @@ class IrrepsInstanceNorm(nn.Module):
     affine: bool = True
     reduce: str = "mean"  # reduction over nodes for the norm statistic
 
-    @nn.compact
     def __call__(
         self,
         x: jnp.ndarray,
@@ -175,8 +172,8 @@ class IrrepsInstanceNorm(nn.Module):
         num_scalars = sum(mul for mul, ir in irreps if ir.l == 0)
         num_features = irreps.num_irreps
         if self.affine:
-            weight = self.param("weight", nn.initializers.ones, (num_features,))
-            bias = self.param("bias", nn.initializers.zeros, (num_scalars,))
+            weight = self.param("weight", jax.nn.initializers.ones, (num_features,))
+            bias = self.param("bias", jax.nn.initializers.zeros, (num_scalars,))
 
         out = []
         off = 0

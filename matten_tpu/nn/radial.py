@@ -13,12 +13,12 @@ from __future__ import annotations
 import functools
 from typing import Callable, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from matten_tpu.nn.common import normal_initializer
+from matten_tpu.nn.module import Module
 
 __all__ = [
     "bessel_basis",
@@ -115,7 +115,7 @@ def soft_one_hot_linspace(
     raise ValueError(f"unsupported basis {basis!r}")
 
 
-class ScalarMLP(nn.Module):
+class ScalarMLP(Module):
     """Fully connected net on invariant scalars, e3nn init convention.
 
     hs = [in, hidden, ..., out]; hidden layers use `act` (normalize2mom'd),
@@ -125,22 +125,13 @@ class ScalarMLP(nn.Module):
     hs: Sequence[int]
     act: str = "ssp"
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, transposed: bool = False) -> jnp.ndarray:
-        """transposed=True computes the SAME function in [features, batch]
-        layout (input [in, E] -> output [out, E]; identical parameters):
-        the fused conv kernel consumes feature-major edge arrays, and
-        producing them natively avoids transposing the wide [E, out]
-        radial-weight array (~2 x out x E x 4 bytes of HBM per layer)."""
+    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         act = normalize2mom(self.act)
         n = len(self.hs) - 1
         for i in range(n):
             d_in, d_out = self.hs[i], self.hs[i + 1]
             w = self.param(f"w{i}", normal_initializer(1.0), (d_in, d_out))
-            if transposed:
-                x = (w.astype(x.dtype).T @ x) / np.sqrt(d_in)
-            else:
-                x = x @ w.astype(x.dtype) / np.sqrt(d_in)
+            x = x @ w.astype(x.dtype) / np.sqrt(d_in)
             if i < n - 1:
                 x = act(x)
         return x

@@ -9,13 +9,13 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from matten_tpu.nn.common import irreps_dict
+from matten_tpu.nn.module import Module
 
 
-def validate_chain(modules: Sequence[nn.Module]) -> None:
+def validate_chain(modules: Sequence[Module]) -> None:
     """Check irreps compatibility of consecutive dict-passing modules."""
     for a, b in zip(modules[:-1], modules[1:]):
         if not hasattr(a, "irreps_out") or not hasattr(b, "irreps_in"):
@@ -36,8 +36,8 @@ def validate_chain(modules: Sequence[nn.Module]) -> None:
                     )
 
 
-class Sequential(nn.Module):
-    layers: Tuple[nn.Module, ...]
+class Sequential(Module):
+    layers: Tuple[Module, ...]
 
     @property
     def irreps_in(self):
@@ -47,7 +47,6 @@ class Sequential(nn.Module):
     def irreps_out(self):
         return self.layers[-1].irreps_out
 
-    @nn.compact
     def __call__(self, data: Dict[str, jnp.ndarray], **kwargs) -> Dict[str, jnp.ndarray]:
         for layer in self.layers:
             # thread optional flags (e.g. use_running_average) only to
@@ -57,7 +56,6 @@ class Sequential(nn.Module):
             else:
                 data = layer(data)
         return data
-
 
 from matten_tpu.nn.conv import PointConvWithActivation  # noqa: E402
 

@@ -3,7 +3,7 @@
 A from-scratch re-derivation of the irreps type system the reference
 framework gets from e3nn (`e3nn.o3.Irreps`; used throughout
 /root/reference/src/matten, e.g. data/irreps.py:17). Pure Python, hashable,
-static — safe to use as flax module attributes and jit static args.
+static — safe to use as module attributes and jit static args.
 
 Conventions (shared by the whole framework):
   * An irrep of O(3) is labeled (l, p): degree l >= 0 and parity p in {+1,-1},

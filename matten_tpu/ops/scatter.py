@@ -1,11 +1,10 @@
 """Segment (scatter) reductions with static segment counts.
 
-TPU-native replacement for torch_scatter (reference N1; used for message
-aggregation nn/conv.py:114, graph pooling nn/nodewise.py:144, norms
-nn/utils.py:611,633). Baseline tier: jax segment ops, which XLA lowers to
-sorted-scatter; edges are pre-sorted by destination at batching time so the
-access pattern is segment-local. The Pallas fused kernel tier lives in
-matten_tpu/kernels.
+Replacement for torch_scatter (reference N1; used for message aggregation
+nn/conv.py:114, graph pooling nn/nodewise.py:144, norms
+nn/utils.py:611,633): jax segment ops, which XLA lowers to sorted-scatter;
+edges are pre-sorted by destination at batching time so the access pattern
+is segment-local.
 """
 
 from __future__ import annotations

@@ -6,8 +6,7 @@ Re-derivation of the e3nn TensorProduct machinery the reference depends on
 nn/nodewise.py:111). Instead of torchscript codegen, a `TensorProductPlan`
 is a *static* description (instructions + per-path CG tables + normalization
 constants) built once at model-construction time; its `apply` is a chain of
-einsums that XLA fuses and tiles onto the MXU. A Pallas fused
-gather-TP-scatter kernel consumes the same plan (matten_tpu/kernels).
+einsums that XLA fuses and maps onto matrix units.
 
 Normalization follows the e3nn convention the reference's training dynamics
 assume: `irrep_normalization="component"`, `path_normalization="element"`,
@@ -218,14 +217,13 @@ class TensorProductPlan:
         per scalar channel s, ONE dense [in_dim, out_dim] block-diagonal
         matrix D_s (the l (x) 0e -> l CG is delta/sqrt(2l+1), so every path
         is a channel-mixing matrix replicated over the 2l+1 components) and
-        contracts x @ D_s once on the MXU, masked by x2.
+        contracts x @ D_s once, masked by x2.
 
-        MEASURED SLOWER than `apply` on v5e at production sizes (0.95 vs
-        0.48 ms/layer, devtools/fctp_bench.py): rebuilding D from the flat
-        weights every step is an XLA scatter, which dominates. Kept as the
-        reference formulation for regimes where the weights are static
-        across many applications (inference serving with frozen params can
-        precompute D once); not used by the conv layers.
+        Rebuilding D from the flat weights every step is an XLA scatter.
+        Kept as the reference formulation for regimes where the weights are
+        static across many applications (inference serving with frozen
+        params can precompute D once); not used by the conv layers. Its
+        speed on the GPU is unmeasured (devtools/fctp_bench.py times it).
         """
         assert self.in2_is_onehot_compatible, "plan is not scalar-dense compatible"
         dtype = x1.dtype
@@ -257,7 +255,7 @@ class TensorProductPlan:
         weights: jnp.ndarray,
         operand_dtype=None,
     ) -> jnp.ndarray:
-        """FCTP with all-scalar irreps_in2 reshaped into plain MXU matmuls.
+        """FCTP with all-scalar irreps_in2 reshaped into plain matmuls.
 
         Mathematically identical to `apply(x1, x2, weights)` for ANY x2
         (one-hot or not): the l (x) 0e -> l CG is delta/sqrt(2l+1), so each
@@ -268,13 +266,12 @@ class TensorProductPlan:
         against x2 collapses s.
 
         Why: `apply`'s einsums lower to B-batched [d, u] x [u, w] matmuls
-        whose M dim is the irrep dim (<= 9) — they strand the 128x128 MXU
-        and the step becomes dispatch/shape-bound. This variant keeps
-        M = B*d and N = S*mul_out large. It does S-fold more FLOPs than
-        the per-element minimal contraction, so it is only used at small
-        S (nn.conv gates on S < 16; at S=5 the FLOPs are ~0.2% of MXU
-        peak for a step). `operand_dtype=bfloat16` runs the matmul with
-        bf16 operands (f32 accumulation via preferred_element_type).
+        whose M dim is the irrep dim (<= 9), too small for a matrix unit.
+        This variant keeps M = B*d and N = S*mul_out large. It does S-fold
+        more FLOPs than the per-element minimal contraction, so it is only
+        used at small S (nn.conv gates on S < 16; the threshold is
+        unmeasured on the GPU). `operand_dtype=bfloat16` runs the matmul
+        with bf16 operands (f32 accumulation via preferred_element_type).
         """
         assert self.in2_is_onehot_compatible, "plan is not scalar-matmul compatible"
         dtype = x1.dtype

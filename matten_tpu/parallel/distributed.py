@@ -2,10 +2,11 @@
 
 Replaces the reference's reliance on Lightning/torch.distributed process
 management (reference N12, SURVEY.md §5.8): `jax.distributed.initialize`
-wires up the multi-host SPMD runtime; collectives ride ICI inside a slice
-and DCN across slices (mesh construction keeps the 'data' axis outermost so
-only gradient reductions cross DCN). `rank_zero_only` mirrors the
-reference's single rank-awareness point (utils_wandb.py:72).
+wires up the multi-host SPMD runtime; collectives ride the intra-host links
+inside a host and the network across hosts (mesh construction keeps the
+'data' axis outermost so only gradient reductions cross hosts).
+`rank_zero_only` mirrors the reference's single rank-awareness point
+(utils_wandb.py:72).
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ def initialize_distributed(
 ) -> None:
     """Initialize the multi-host runtime (no-op when single-process).
 
-    With no arguments, jax auto-detects the cluster environment (TPU pod
-    metadata, SLURM, etc.).
+    With no arguments, jax auto-detects the cluster environment (SLURM,
+    etc.); elsewhere pass all three.
     """
     try:
         jax.distributed.initialize(

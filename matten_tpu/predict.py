@@ -29,7 +29,7 @@ from matten_tpu.models import create_atomic_tensor_model, create_scalar_tensor_m
 from matten_tpu.nn.embedding import atomic_number_map
 from matten_tpu.ops.cartesian import cartesian_tensor_map
 from matten_tpu.ops.elasticity import ElasticTensor
-from matten_tpu.train.checkpoint import load_sidecar
+from matten_tpu.train.checkpoint import CheckpointManager, load_sidecar, load_variables
 
 logger = logging.getLogger(__name__)
 
@@ -68,39 +68,8 @@ def load_pretrained(checkpoint_dir: Union[str, Path]):
     else:
         model = create_scalar_tensor_model(hparams["model"], dataset_hparams)
 
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.PyTreeCheckpointer()
-
-    def _restore(path):
-        try:
-            return ckptr.restore(path)
-        except ValueError:
-            # checkpoint saved on a different topology (e.g. TPU ckpt
-            # restored on CPU): deserialize to plain numpy instead
-            import jax.tree_util as jtu
-
-            meta = ckptr.metadata(path).item_metadata
-            tree = meta.tree if hasattr(meta, "tree") else dict(meta)
-            restore_args = jtu.tree_map(
-                lambda m: ocp.RestoreArgs(restore_type=np.ndarray), tree
-            )
-            return ckptr.restore(path, restore_args=restore_args)
-
-    # prefer best epoch (from the manager index), fall back to `last`
-    import json
-
-    index_path = checkpoint_dir / "index.json"
-    if index_path.exists():
-        with open(index_path) as f:
-            scores = {int(k): float(v) for k, v in json.load(f).items()}
-        best = min(scores, key=scores.get)
-        state = _restore(checkpoint_dir.absolute() / f"epoch_{best}")
-    else:
-        state = _restore(checkpoint_dir.absolute() / "last")
-    variables = {"params": state["params"]}
-    if state.get("batch_stats"):
-        variables["batch_stats"] = state["batch_stats"]
+    # prefer the best epoch (from the manager index), fall back to `last`
+    variables = load_variables(CheckpointManager(checkpoint_dir).best_path())
     normalize = bool(hparams.get("normalize_tensor_target", False))
     return model, variables, cfg, statistics, normalize
 
@@ -133,8 +102,10 @@ def predict(
     cmap = cartesian_tensor_map(cfg.tensor_target_formula)
     normalizer = statistics.target_normalizer if normalize else None
 
+    # the variables are an argument, not constants baked into the program:
+    # the compiled forward then depends only on the model and the pad shape
     @jax.jit
-    def fwd(data):
+    def fwd(variables, data):
         return model.apply(variables, data, use_running_average=True)
 
     results: List[Optional[np.ndarray]] = []
@@ -143,7 +114,7 @@ def predict(
         pad = pad_spec_for(chunk)
         data, _ = collate_graphs(chunk, pad, species_map=species_map)
         data = {k: jnp.asarray(v) for k, v in data.items()}
-        out = np.asarray(fwd(data))
+        out = np.asarray(fwd(variables, data))
         if cfg.per_atom:
             node_off = 0
             for g in chunk:

@@ -14,6 +14,8 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 
+from matten_tpu.nn.module import Module
+
 __all__ = ["check_finite", "DetectAnomaly", "enable_nan_debugging"]
 
 
@@ -32,10 +34,7 @@ def check_finite(data: Dict[str, jnp.ndarray], where: str = "") -> None:
             jax.debug.callback(_report, name, bad, ordered=False)
 
 
-import flax.linen as nn
-
-
-class DetectAnomaly(nn.Module):
+class DetectAnomaly(Module):
     """Layer wrapper: forwards `data` unchanged, checking every field."""
 
     label: str = ""

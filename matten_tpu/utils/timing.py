@@ -1,6 +1,6 @@
 """Timing + profiling: per-epoch wall time and jax profiler traces.
 
-Reference: TimeMeter (model/utils.py:4-35). The TPU additions SURVEY.md §5.1
+Reference: TimeMeter (model/utils.py:4-35). The additions SURVEY.md §5.1
 calls for: a block_until_ready step timer, an edges/s counter, and
 jax.profiler trace capture for xprof/tensorboard analysis.
 """

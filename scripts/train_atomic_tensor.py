@@ -14,13 +14,13 @@ from pathlib import Path as _P
 sys.path.insert(0, str(_P(__file__).resolve().parent.parent))
 
 import numpy as np
-import yaml
 
 from matten_tpu.data.datamodule import TensorDataModule
 from matten_tpu.models import create_atomic_tensor_model
 from matten_tpu.train import CanonicalRegressionTask, Trainer
 from matten_tpu.train.checkpoint import save_sidecar
 from matten_tpu.train.config import build_mesh_spec, build_trainer_config
+from matten_tpu.utils.compile_cache import enable_compile_cache
 
 from matten_tpu.utils.logging import set_logger
 
@@ -39,11 +39,9 @@ def get_args():
 
 
 def main(config: dict):
-    from matten_tpu.kernels.fused_tp import configure_default_tiers
-
     seed = config.get("seed_everything", 35)
     np.random.seed(seed)
-    configure_default_tiers()
+    enable_compile_cache()
 
     dm = TensorDataModule(**config["data"], seed=seed)
     dm.setup()
@@ -114,6 +112,8 @@ def main(config: dict):
 
 
 if __name__ == "__main__":
+    import yaml
+
     args = get_args()
     with open(args.config) as f:
         cfg = yaml.safe_load(f)

@@ -19,13 +19,13 @@ from pathlib import Path as _P
 sys.path.insert(0, str(_P(__file__).resolve().parent.parent))
 
 import numpy as np
-import yaml
 
 from matten_tpu.data.datamodule import TensorDataModule
-from matten_tpu.models import create_scalar_tensor_model
-from matten_tpu.train import CanonicalRegressionTask, Trainer
+from matten_tpu.train import CanonicalRegressionTask
 from matten_tpu.train.checkpoint import save_sidecar
 from matten_tpu.train.config import build_mesh_spec, build_trainer_config
+from matten_tpu.train.layouts import layout_trainer
+from matten_tpu.utils.compile_cache import enable_compile_cache
 
 from matten_tpu.utils.logging import set_logger
 
@@ -47,11 +47,7 @@ def main(config: dict):
     seed = config.get("seed_everything", 35)
     np.random.seed(seed)
 
-    # kernel tier: MATTEN_TP_IMPL=pallas|xla (default: pallas on TPU),
-    # matmul dtype: MATTEN_AGG_DTYPE (default bf16 with pallas)
-    from matten_tpu.kernels.fused_tp import configure_default_tiers
-
-    configure_default_tiers()
+    enable_compile_cache()
 
     dm = TensorDataModule(**config["data"], seed=seed)
     dm.setup()
@@ -62,9 +58,7 @@ def main(config: dict):
     # reference exposes this via Lightning num_nodes/devices/accelerator,
     # scripts/configs/materials_tensor.yaml:73-76)
     mesh_spec = build_mesh_spec(config)
-    mesh = None
     if mesh_spec is not None:
-        mesh = mesh_spec.make_mesh()
         dm.set_sharding(**mesh_spec.loader_kwargs())
         logger.info(
             "mesh: data=%d graph=%d mode=%s",
@@ -83,10 +77,6 @@ def main(config: dict):
         scalar_target_names=scalar_names,
     )
     model_hparams.pop("task_weights", None)
-    if mesh_spec is not None and mesh_spec.n_graph > 1:
-        model_hparams["graph_parallel_axis"] = "graph"
-        model_hparams["graph_parallel_mode"] = mesh_spec.mode
-    model = create_scalar_tensor_model(model_hparams, dataset_hparams)
 
     tensor_name = config["data"].get("tensor_target_name", "elastic_tensor_full")
     tasks = [
@@ -109,13 +99,7 @@ def main(config: dict):
         )
 
     tcfg = build_trainer_config(config)
-    trainer = Trainer(
-        model,
-        tasks,
-        tcfg,
-        mesh=mesh,
-        graph_shard_mode=mesh_spec.mode if mesh_spec is not None else "edge",
-    )
+    trainer = layout_trainer(model_hparams, dataset_hparams, tasks, tcfg, mesh_spec)
     state = trainer.init_state(next(iter(dm.train_dataloader())), rng_seed=seed)
 
     if tcfg.checkpoint_dir:
@@ -147,6 +131,8 @@ def main(config: dict):
 
 
 if __name__ == "__main__":
+    import yaml
+
     args = get_args()
     with open(args.config) as f:
         cfg = yaml.safe_load(f)

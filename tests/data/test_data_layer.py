@@ -599,8 +599,7 @@ def test_tail_shard_edge_vectors_zeroed(num_edge_shards):
 
 def test_batch_by_size_single_window_warns(caplog):
     """batch_by_size on a dataset that fits one sort window must warn
-    loudly (deterministic batch membership degrades BatchNorm training —
-    DEVNOTES r5 quality record)."""
+    loudly (deterministic batch membership degrades BatchNorm training)."""
     import logging
 
     from matten_tpu.data.datamodule import BatchLoader

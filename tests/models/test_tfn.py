@@ -3,7 +3,7 @@
 Mirrors the reference's centerpiece test (tests/model/test_tfn_tensor.py:
 98-139): build a real model, run the full data pipeline on a crystal, apply
 a random O(3) rotation to the *structure*, and assert the predicted tensor
-transforms covariantly; plus TPU-specific invariances the reference cannot
+transforms covariantly; plus static-shape invariances the reference cannot
 test (padding invariance, atom-permutation invariance).
 """
 

@@ -5,7 +5,7 @@ the CG signs, the l=1 (x, y, z) basis, SH component normalization, the
 Cartesian symmetry-adapted bases, uvu path weights and the full model
 assembly (init + normalization factors) against silent drift. A failure
 here means a convention changed — which silently breaks training dynamics
-and every saved checkpoint (DEVNOTES.md "Conventions").
+and every saved checkpoint (README.md "Conventions").
 """
 
 from pathlib import Path
@@ -82,8 +82,8 @@ def test_uvu_plan_frozen(gold):
 def test_model_forward_frozen(gold):
     """Fixed seed + fixed batch -> recorded output and layer-0 features.
 
-    Locks parameter-path naming/RNG folding (the flax layer-position
-    gotcha, DEVNOTES.md), path-weight normalization, bessel x sqrt(N),
+    Locks parameter-path naming/RNG folding (nn/module.py), path-weight
+    normalization, bessel x sqrt(N),
     1/sqrt(avg_num_neigh), gate wiring and readout ordering all at once."""
     from matten_tpu.models import create_scalar_tensor_model
 

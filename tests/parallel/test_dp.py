@@ -240,125 +240,6 @@ def test_edge_partition_matches_single_device(setup):
     )
 
 
-@pytest.mark.parametrize("mode", ["edge", "node", "node_ring"])
-def test_graph_parallel_pallas_tier_matches_xla(setup, mode):
-    """The fused Pallas kernel stays active under graph parallelism.
-
-    Round-1 gap (VERDICT weak #2): the kernel was disabled the moment the
-    graph was sharded. Here one sharded train step with the pallas tier
-    (interpret mode) must match the xla tier exactly."""
-    from matten_tpu.kernels import fused_tp
-
-    graphs, smap, _ = setup
-    task = CanonicalRegressionTask(name="elastic_tensor_full")
-    ds_info = {
-        "allowed_species": [8, 14],
-        "average_num_neighbors": 20.0,
-        "atom_feats_size": None,
-    }
-    hp = dict(
-        HPARAMS,
-        graph_parallel_axis="graph",
-        graph_parallel_mode=mode,
-    )
-    model = create_scalar_tensor_model(hp, ds_info)
-    mesh = make_mesh(n_data=1, n_graph=2)
-    loader = BatchLoader(
-        graphs[:4], batch_size=4, species_map=smap, num_shards=1,
-        num_edge_shards=2, node_shard=(mode in ("node", "node_ring")),
-        ring=(mode == "node_ring"),
-        node_multiple=16, edge_multiple=256,
-    )
-    loader_s = BatchLoader(
-        graphs[:4], batch_size=4, species_map=smap,
-        node_multiple=16, edge_multiple=256,
-    )
-    batch = next(iter(loader))
-    trainer = Trainer(
-        model, [task], TrainerConfig(max_epochs=1, lr=0.01, optimizer="sgd"),
-        mesh=mesh, graph_shard_mode=mode,
-    )
-    state = trainer.init_state(next(iter(loader_s)), rng_seed=0)
-    data = {k: jnp.asarray(v) for k, v in batch[0].items()}
-    targets = {k: jnp.asarray(v) for k, v in batch[1].items()}
-
-    s_xla, loss_xla, _ = trainer._train_step(state, data, targets)
-    try:
-        fused_tp.set_tp_impl("pallas", interpret=True)
-        trainer2 = Trainer(
-            model, [task], TrainerConfig(max_epochs=1, lr=0.01, optimizer="sgd"),
-            mesh=mesh, graph_shard_mode=mode,
-        )
-        state2 = trainer2.init_state(next(iter(loader_s)), rng_seed=0)
-        s_pl, loss_pl, _ = trainer2._train_step(state2, data, targets)
-    finally:
-        fused_tp.set_tp_impl("xla", interpret=False)
-
-    np.testing.assert_allclose(float(loss_xla), float(loss_pl), rtol=1e-5)
-    for a, b in zip(jax.tree.leaves(s_xla.params), jax.tree.leaves(s_pl.params)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
-
-
-@pytest.mark.parametrize("mode", ["edge", "node"])
-def test_graph_parallel_chunked_kernel_matches_xla(setup, mode):
-    """The CHUNK-ALIGNED fused kernel stays active under graph parallelism.
-
-    Round-2 verdict weak #3: large sharded batches silently reverted to the
-    XLA tier because the loader dropped chunk alignment when edge-sharding.
-    Here the loader chunk-aligns each shard's edge slice (node_chunk=16 so
-    the tiny CPU batch engages the chunked layout; real runs use 128) and
-    one sharded train step with the pallas tier must match the xla tier."""
-    from matten_tpu.data import keys as K
-    from matten_tpu.kernels import fused_tp
-
-    graphs, smap, _ = setup
-    task = CanonicalRegressionTask(name="elastic_tensor_full")
-    ds_info = {
-        "allowed_species": [8, 14],
-        "average_num_neighbors": 20.0,
-        "atom_feats_size": None,
-    }
-    hp = dict(HPARAMS, graph_parallel_axis="graph", graph_parallel_mode=mode)
-    model = create_scalar_tensor_model(hp, ds_info)
-    mesh = make_mesh(n_data=1, n_graph=2)
-    loader = BatchLoader(
-        graphs, batch_size=8, species_map=smap, num_shards=1,
-        num_edge_shards=2, node_shard=(mode == "node"),
-        node_multiple=16, edge_multiple=256, node_chunk=16,
-    )
-    loader_s = BatchLoader(
-        graphs, batch_size=8, species_map=smap,
-        node_multiple=16, edge_multiple=256,
-    )
-    batch = next(iter(loader))
-    # the sharded batch must carry per-shard chunk-aligned fields
-    assert K.EDGE_DST_CHUNK in batch[0], "chunk alignment did not engage"
-    assert batch[0][K.EDGE_DST_CHUNK].shape[1] == 2  # [S_data=1 -> Sg, nb]
-    trainer = Trainer(
-        model, [task], TrainerConfig(max_epochs=1, lr=0.01, optimizer="sgd"),
-        mesh=mesh, graph_shard_mode=mode,
-    )
-    state = trainer.init_state(next(iter(loader_s)), rng_seed=0)
-    data = {k: jnp.asarray(v) for k, v in batch[0].items()}
-    targets = {k: jnp.asarray(v) for k, v in batch[1].items()}
-
-    s_xla, loss_xla, _ = trainer._train_step(state, data, targets)
-    try:
-        fused_tp.set_tp_impl("pallas", interpret=True)
-        trainer2 = Trainer(
-            model, [task], TrainerConfig(max_epochs=1, lr=0.01, optimizer="sgd"),
-            mesh=mesh, graph_shard_mode=mode,
-        )
-        state2 = trainer2.init_state(next(iter(loader_s)), rng_seed=0)
-        s_pl, loss_pl, _ = trainer2._train_step(state2, data, targets)
-    finally:
-        fused_tp.set_tp_impl("xla", interpret=False)
-
-    np.testing.assert_allclose(float(loss_xla), float(loss_pl), rtol=1e-5)
-    for a, b in zip(jax.tree.leaves(s_xla.params), jax.tree.leaves(s_pl.params)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
-
-
 def test_node_shard_matches_single_device(setup):
     """Node-sharded graph parallelism (halo all_gather) == single device."""
     graphs, smap, _ = setup
